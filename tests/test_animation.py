@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from arkoserenderer_tpu.core import mathx as mx
-from arkoserenderer_tpu.ops.skinning import apply_morphs, skin_vertices
-from arkoserenderer_tpu.scene.animation import (
+from arkoserenderer.core import mathx as mx
+from arkoserenderer.ops.skinning import apply_morphs, skin_vertices
+from arkoserenderer.scene.animation import (
     AnimChannel,
     AnimationClip,
     INTERP_LINEAR,
@@ -121,14 +121,14 @@ def test_morph_targets_blend():
 
 @pytest.mark.skipif(not SAMPLES.exists(), reason="no sample assets")
 def test_cesium_man_animates():
-    from arkoserenderer_tpu.assets.gltf import load_gltf
-    from arkoserenderer_tpu.assets.procedural import gradient_env_map
-    from arkoserenderer_tpu.core.types import RasterConfig, SceneLimits
-    from arkoserenderer_tpu.models.standard import Renderer
-    from arkoserenderer_tpu.rendering.pipeline import PipelineConfig
-    from arkoserenderer_tpu.scene.camera import Camera
-    from arkoserenderer_tpu.scene.lights import DirectionalLight
-    from arkoserenderer_tpu.scene.scene import Scene
+    from arkoserenderer.assets.gltf import load_gltf
+    from arkoserenderer.assets.procedural import gradient_env_map
+    from arkoserenderer.core.types import RasterConfig, SceneLimits
+    from arkoserenderer.models.standard import Renderer
+    from arkoserenderer.rendering.pipeline import PipelineConfig
+    from arkoserenderer.scene.camera import Camera
+    from arkoserenderer.scene.lights import DirectionalLight
+    from arkoserenderer.scene.scene import Scene
 
     scene = Scene(limits=SceneLimits(
         max_vertices=1 << 16, max_indices=3 << 16, max_drawables=16,

@@ -5,11 +5,11 @@ import os
 import numpy as np
 import pytest
 
-from arkoserenderer_tpu.apps.showcase import main as showcase_main
-from arkoserenderer_tpu.assets.procedural import build_test_scene
-from arkoserenderer_tpu.core.types import RasterConfig
-from arkoserenderer_tpu.models.standard import Renderer
-from arkoserenderer_tpu.rendering.pipeline import PipelineConfig
+from arkoserenderer.apps.showcase import main as showcase_main
+from arkoserenderer.assets.procedural import build_test_scene
+from arkoserenderer.core.types import RasterConfig
+from arkoserenderer.models.standard import Renderer
+from arkoserenderer.rendering.pipeline import PipelineConfig
 
 CFG = PipelineConfig(
     width=128, height=128,
@@ -25,7 +25,7 @@ def test_showcase_cli(tmp_path):
         "--no-bloom",
     ])
     assert os.path.exists(out)
-    from arkoserenderer_tpu.utils.imageio import load_image_rgba
+    from arkoserenderer.utils.imageio import load_image_rgba
 
     img = load_image_rgba(out)
     assert img.shape == (96, 96, 4)
@@ -65,7 +65,7 @@ def test_meshviewer_cli(tmp_path, capsys):
     samples = Path("/root/reference/assets/assets/sample/models")
     if not samples.exists():
         _pytest.skip("no sample assets")
-    from arkoserenderer_tpu.apps.meshviewer import main as mv_main
+    from arkoserenderer.apps.meshviewer import main as mv_main
 
     out = str(tmp_path / "turn_{frame}.png")
     mv_main([str(samples / "CornellBox" / "CornellBox.gltf"),
@@ -80,14 +80,14 @@ def test_meshviewer_cli(tmp_path, capsys):
 def test_humandemo_renders(tmp_path):
     """HumanDemo-equivalent (HumanDemo.cpp): procedural bust with skin
     subsurface material + scalp hair, SSSS pipeline on."""
-    from arkoserenderer_tpu.apps.humandemo import main
+    from arkoserenderer.apps.humandemo import main
 
     out = str(tmp_path / "human.png")
     assert main(["--width", "96", "--height", "96", "--frames", "2",
                  "--out", out]) == 0
     import numpy as np
 
-    from arkoserenderer_tpu.utils.imageio import load_image_rgba
+    from arkoserenderer.utils.imageio import load_image_rgba
 
     img = np.asarray(load_image_rgba(out), np.float32)
     assert np.isfinite(img).all()
@@ -95,11 +95,11 @@ def test_humandemo_renders(tmp_path):
 
 
 def test_humandemo_ssss_changes_skin(tmp_path):
-    from arkoserenderer_tpu.apps.humandemo import main
+    from arkoserenderer.apps.humandemo import main
 
     import numpy as np
 
-    from arkoserenderer_tpu.utils.imageio import load_image_rgba
+    from arkoserenderer.utils.imageio import load_image_rgba
 
     a = str(tmp_path / "a.png")
     b = str(tmp_path / "b.png")
@@ -115,14 +115,14 @@ def test_humandemo_ssss_changes_skin(tmp_path):
 def test_geodata_terrain_renders(tmp_path):
     """GeodataApp-equivalent (geodata/GeodataApp.cpp): heightmap -> region
     crop -> LOD terrain meshes -> altitude-colored render."""
-    from arkoserenderer_tpu.apps.geodata import main
+    from arkoserenderer.apps.geodata import main
 
     out = str(tmp_path / "terrain.png")
     assert main(["--width", "96", "--height", "96", "--frames", "2",
                  "--grid", "65", "--out", out]) == 0
     import numpy as np
 
-    from arkoserenderer_tpu.utils.imageio import load_image_rgba
+    from arkoserenderer.utils.imageio import load_image_rgba
 
     img = np.asarray(load_image_rgba(out), np.float32)
     assert np.isfinite(img).all()
@@ -130,7 +130,7 @@ def test_geodata_terrain_renders(tmp_path):
 
 
 def test_geodata_region_crop():
-    from arkoserenderer_tpu.apps.geodata import crop_region, fbm_heightmap
+    from arkoserenderer.apps.geodata import crop_region, fbm_heightmap
 
     h = fbm_heightmap(129)
     import numpy as np
@@ -148,7 +148,7 @@ def test_live_viewer_http_roundtrip():
     import threading
     import urllib.request
 
-    from arkoserenderer_tpu.apps import viewer
+    from arkoserenderer.apps import viewer
 
     result = {}
     import socket
@@ -231,9 +231,9 @@ def test_meshviewer_inspect_edit_save(tmp_path):
     rendering."""
     import numpy as np
 
-    from arkoserenderer_tpu.apps import meshviewer
-    from arkoserenderer_tpu.assets.baked import load_baked, save_baked
-    from arkoserenderer_tpu.assets.procedural import build_test_scene
+    from arkoserenderer.apps import meshviewer
+    from arkoserenderer.assets.baked import load_baked, save_baked
+    from arkoserenderer.assets.procedural import build_test_scene
 
     scene, _ = build_test_scene(viewport=(64, 64))
     src = str(tmp_path / "scene.npz")
@@ -253,7 +253,7 @@ def test_meshviewer_inspect_edit_save(tmp_path):
     png = str(tmp_path / "view_{frame}.png")
     meshviewer.main([src, "--frames", "1", "--size", "64",
                      "--view", "normal", "--out", png])
-    from arkoserenderer_tpu.utils.imageio import load_image_rgba
+    from arkoserenderer.utils.imageio import load_image_rgba
 
     img = load_image_rgba(png.format(frame=0))
     assert np.isfinite(img).all() and img[..., :3].std() > 1.0

@@ -8,9 +8,9 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from arkoserenderer_tpu.assets.ark import load_arklvl, load_arkmat, load_arkmsh
-from arkoserenderer_tpu.core.types import SceneLimits
-from arkoserenderer_tpu.scene.scene import Scene
+from arkoserenderer.assets.ark import load_arklvl, load_arkmat, load_arkmsh
+from arkoserenderer.core.types import SceneLimits
+from arkoserenderer.scene.scene import Scene
 
 ASSETS = Path("/root/reference/assets/assets")
 
@@ -76,11 +76,11 @@ def test_arklvl_humandemo_parses_directional_light():
 def test_ark_box_renders_end_to_end():
     """The loaded Box.arkmsh renders through the full pipeline with its
     .arkmat material: red pixels on screen."""
-    from arkoserenderer_tpu.core.types import RasterConfig
-    from arkoserenderer_tpu.models.standard import Renderer
-    from arkoserenderer_tpu.rendering.pipeline import PipelineConfig
-    from arkoserenderer_tpu.scene.camera import Camera
-    from arkoserenderer_tpu.scene.lights import DirectionalLight
+    from arkoserenderer.core.types import RasterConfig
+    from arkoserenderer.models.standard import Renderer
+    from arkoserenderer.rendering.pipeline import PipelineConfig
+    from arkoserenderer.scene.camera import Camera
+    from arkoserenderer.scene.lights import DirectionalLight
 
     scene = small_scene()
     sids = load_arkmsh(scene, ASSETS / "sample/models/Box/Box.arkmsh")
@@ -108,7 +108,7 @@ def test_ark_box_renders_end_to_end():
 
 def test_meshviewer_inspects_arkmsh(capsys):
     """The MeshViewer CLI accepts the reference's .arkmsh directly."""
-    from arkoserenderer_tpu.apps import meshviewer
+    from arkoserenderer.apps import meshviewer
 
     meshviewer.main([
         str(ASSETS / "sample/models/Box/Box.arkmsh"), "--no-render",
@@ -125,7 +125,7 @@ def test_meshviewer_inspects_arkmsh(capsys):
 
 
 def test_arkset_hierarchy_instantiates(tmp_path):
-    from arkoserenderer_tpu.assets.ark import load_arkset, save_arkset
+    from arkoserenderer.assets.ark import load_arkset, save_arkset
 
     # A two-level node tree: root carries a translation, child A instances
     # mesh 0 with a scale, child-of-child B instances mesh 0 again.
@@ -183,8 +183,8 @@ def test_arkset_hierarchy_instantiates(tmp_path):
 
 
 def test_arkskel_roundtrip_and_pose(tmp_path):
-    from arkoserenderer_tpu.assets.ark import load_arkskel, save_arkskel
-    from arkoserenderer_tpu.scene.animation import Skeleton, evaluate_pose
+    from arkoserenderer.assets.ark import load_arkskel, save_arkskel
+    from arkoserenderer.scene.animation import Skeleton, evaluate_pose
 
     rng = np.random.default_rng(7)
     n = 4
@@ -217,10 +217,10 @@ def test_arkskel_roundtrip_and_pose(tmp_path):
 
 
 def test_arkanim_roundtrip_drives_pose(tmp_path):
-    from arkoserenderer_tpu.assets.ark import (
+    from arkoserenderer.assets.ark import (
         load_arkanim, load_arkskel, save_arkanim, save_arkskel,
     )
-    from arkoserenderer_tpu.scene.animation import (
+    from arkoserenderer.scene.animation import (
         AnimationClip, AnimChannel, INTERP_LINEAR, INTERP_STEP, Skeleton,
         evaluate_pose,
     )
@@ -269,7 +269,7 @@ def test_arkanim_roundtrip_drives_pose(tmp_path):
 
 
 def test_arkhair_roundtrip(tmp_path):
-    from arkoserenderer_tpu.assets.ark import load_arkhair, save_arkhair
+    from arkoserenderer.assets.ark import load_arkhair, save_arkhair
 
     # Two strands: 3 points and 4 points.
     pts = np.array([[0, 0, 0], [0, 1, 0], [0, 2, 0],
@@ -296,7 +296,7 @@ def test_arklvl_save_roundtrip_with_editor_edit(tmp_path):
     the edited transform survives the round trip (LevelAsset.h:135 save)."""
     import shutil
 
-    from arkoserenderer_tpu.assets.ark import LevelDocument, load_arklvl
+    from arkoserenderer.assets.ark import LevelDocument, load_arklvl
 
     # Build a tmp assets root with Box.arkmsh and a level referencing it.
     box_dir = tmp_path / "assets" / "sample" / "models" / "Box"
@@ -318,7 +318,7 @@ def test_arklvl_save_roundtrip_with_editor_edit(tmp_path):
     doc = res["doc"]
 
     # Editor-style edit: move the object.
-    from arkoserenderer_tpu.scene.editor import EditorScene
+    from arkoserenderer.scene.editor import EditorScene
 
     ed = EditorScene(scene=scene)
     ed.selected = doc.object_instances[0][0]

@@ -8,8 +8,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from arkoserenderer_tpu.assets import cereal_binary as cb
-from arkoserenderer_tpu.assets.ark import (
+from arkoserenderer.assets import cereal_binary as cb
+from arkoserenderer.assets.ark import (
     LevelDocument,
     load_arkanim,
     load_arkhair,
@@ -23,8 +23,8 @@ from arkoserenderer_tpu.assets.ark import (
     save_arkset,
     save_arkskel,
 )
-from arkoserenderer_tpu.core.types import SceneLimits
-from arkoserenderer_tpu.scene.scene import Scene
+from arkoserenderer.core.types import SceneLimits
+from arkoserenderer.scene.scene import Scene
 
 REF_BOX = Path("/root/reference/assets/assets/sample/models/Box/Box.arkmsh")
 
@@ -178,7 +178,7 @@ def test_material_version_gating():
 
 
 def test_skeleton_binary_roundtrip(tmp_path):
-    from arkoserenderer_tpu.scene.animation import Skeleton
+    from arkoserenderer.scene.animation import Skeleton
 
     skel = Skeleton(
         parents=np.array([-1, 0, 1], np.int32),
@@ -203,7 +203,7 @@ def test_skeleton_binary_roundtrip(tmp_path):
 
 
 def test_animation_binary_roundtrip(tmp_path):
-    from arkoserenderer_tpu.scene.animation import AnimationClip, AnimChannel
+    from arkoserenderer.scene.animation import AnimationClip, AnimChannel
 
     clip = AnimationClip(channels=[
         AnimChannel(target_joint=0, path="translation",

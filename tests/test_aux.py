@@ -4,10 +4,10 @@ asset formats (cube LUT, IES, hair), IES-lit spots, LUT grading."""
 import numpy as np
 import jax.numpy as jnp
 
-from arkoserenderer_tpu.assets import external as ext
-from arkoserenderer_tpu.assets.external import CubeLUT, HairFile, IESProfile, apply_lut3d
-from arkoserenderer_tpu.core import taskgraph
-from arkoserenderer_tpu.utils import memstats, profiling
+from arkoserenderer.assets import external as ext
+from arkoserenderer.assets.external import CubeLUT, HairFile, IESProfile, apply_lut3d
+from arkoserenderer.core import taskgraph
+from arkoserenderer.utils import memstats, profiling
 
 
 def test_taskgraph_parallel_for():
@@ -118,11 +118,11 @@ def test_hair_file_roundtrip(tmp_path):
 
 
 def test_ies_spot_in_pipeline():
-    from arkoserenderer_tpu.assets.procedural import build_test_scene
-    from arkoserenderer_tpu.core.types import RasterConfig
-    from arkoserenderer_tpu.models.standard import Renderer
-    from arkoserenderer_tpu.rendering.pipeline import PipelineConfig
-    from arkoserenderer_tpu.scene.lights import SpotLight
+    from arkoserenderer.assets.procedural import build_test_scene
+    from arkoserenderer.core.types import RasterConfig
+    from arkoserenderer.models.standard import Renderer
+    from arkoserenderer.rendering.pipeline import PipelineConfig
+    from arkoserenderer.scene.lights import SpotLight
 
     scene, cam = build_test_scene(viewport=(96, 96), n_spheres=1)
     narrow = np.zeros(256, np.float32)
@@ -142,27 +142,27 @@ def test_ies_spot_in_pipeline():
 
 
 def test_color_grade_lut_in_output():
-    from arkoserenderer_tpu.assets.procedural import build_test_scene
-    from arkoserenderer_tpu.core.types import RasterConfig
-    from arkoserenderer_tpu.models.standard import RenderPipeline, make_forward_pipeline
-    from arkoserenderer_tpu.rendering.pipeline import PipelineConfig
+    from arkoserenderer.assets.procedural import build_test_scene
+    from arkoserenderer.core.types import RasterConfig
+    from arkoserenderer.models.standard import RenderPipeline, make_forward_pipeline
+    from arkoserenderer.rendering.pipeline import PipelineConfig
 
     # A LUT that zeroes blue: output must have no blue channel.
     lut = CubeLUT.identity(4)
     lut.table[..., 2] = 0.0
-    from arkoserenderer_tpu.models.standard import Renderer
+    from arkoserenderer.models.standard import Renderer
 
     scene, cam = build_test_scene(viewport=(96, 96), n_spheres=1)
     cfg = PipelineConfig(width=96, height=96,
                          raster=RasterConfig(tile_h=8, tile_w=16, max_tris_per_tile=256),
                          shadow_map_size=128)
-    import arkoserenderer_tpu.models.standard as std
-    import arkoserenderer_tpu.rendering.passes as passes
+    import arkoserenderer.models.standard as std
+    import arkoserenderer.rendering.passes as passes
 
     pipe_kw = dict(taa=False, bloom=False)
     r = Renderer(scene, cam, cfg, **pipe_kw)
     # Rebuild the pipeline with the LUT-equipped output pass.
-    from arkoserenderer_tpu.rendering.passes.output import OutputPass
+    from arkoserenderer.rendering.passes.output import OutputPass
 
     for i, p in enumerate(r.pipeline.passes):
         if isinstance(p, OutputPass):
@@ -223,7 +223,7 @@ def test_dds_dxt1_solid_blocks():
 
 
 def test_dds_bc5_roundtrip():
-    from arkoserenderer_tpu.assets import meshopt
+    from arkoserenderer.assets import meshopt
 
     rng = np.random.default_rng(4)
     r = rng.integers(0, 256, (8, 8), np.uint8)
@@ -257,7 +257,7 @@ def test_module_watcher_reloads_changed_module(tmp_path):
     import sys
     import time
 
-    from arkoserenderer_tpu.utils.hotreload import ModuleWatcher
+    from arkoserenderer.utils.hotreload import ModuleWatcher
 
     mod_file = tmp_path / "hot_mod_test.py"
     mod_file.write_text("def value():\n    return 1\n")
@@ -285,7 +285,7 @@ def test_module_watcher_survives_broken_module(tmp_path):
     import sys
     import time
 
-    from arkoserenderer_tpu.utils.hotreload import ModuleWatcher
+    from arkoserenderer.utils.hotreload import ModuleWatcher
 
     mod_file = tmp_path / "hot_mod_broken.py"
     mod_file.write_text("def value():\n    return 1\n")
@@ -313,10 +313,10 @@ def test_renderer_reconstruct_preserves_history():
     state: TAA history survives the rebuild bit-exactly."""
     import numpy as np
 
-    from arkoserenderer_tpu.assets.procedural import build_test_scene
-    from arkoserenderer_tpu.core.types import RasterConfig
-    from arkoserenderer_tpu.models.standard import Renderer
-    from arkoserenderer_tpu.rendering.pipeline import PipelineConfig
+    from arkoserenderer.assets.procedural import build_test_scene
+    from arkoserenderer.core.types import RasterConfig
+    from arkoserenderer.models.standard import Renderer
+    from arkoserenderer.rendering.pipeline import PipelineConfig
 
     scene, cam = build_test_scene(viewport=(96, 96))
     cfg = PipelineConfig(
@@ -350,7 +350,7 @@ def test_asset_cooker_dependency_tracking(tmp_path):
     finally:
         sys.path.pop(0)
 
-    from arkoserenderer_tpu.utils.imageio import save_png
+    from arkoserenderer.utils.imageio import save_png
 
     (tmp_path / "src").mkdir()
     rng = np.random.default_rng(0)
@@ -398,10 +398,10 @@ def test_validate_frame_clean_and_detects_nans():
     import jax.numpy as jnp
     import numpy as np
 
-    from arkoserenderer_tpu.assets.procedural import build_test_scene
-    from arkoserenderer_tpu.core.types import RasterConfig
-    from arkoserenderer_tpu.models.standard import Renderer
-    from arkoserenderer_tpu.rendering.pipeline import PipelineConfig, validate_frame
+    from arkoserenderer.assets.procedural import build_test_scene
+    from arkoserenderer.core.types import RasterConfig
+    from arkoserenderer.models.standard import Renderer
+    from arkoserenderer.rendering.pipeline import PipelineConfig, validate_frame
 
     scene, cam = build_test_scene(viewport=(64, 64))
     cfg = PipelineConfig(

@@ -5,8 +5,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from arkoserenderer_tpu.assets.baked import AssetCache, load_baked, save_baked
-from arkoserenderer_tpu.assets.procedural import build_test_scene
+from arkoserenderer.assets.baked import AssetCache, load_baked, save_baked
+from arkoserenderer.assets.procedural import build_test_scene
 
 SAMPLES = Path("/root/reference/assets/assets/sample/models")
 
@@ -34,16 +34,16 @@ def test_procedural_scene_roundtrip(tmp_path):
 
 @pytest.mark.skipif(not SAMPLES.exists(), reason="no sample assets")
 def test_skinned_gltf_roundtrip_renders(tmp_path):
-    from arkoserenderer_tpu.assets.gltf import load_gltf
-    from arkoserenderer_tpu.core.types import RasterConfig, SceneLimits
-    from arkoserenderer_tpu.models.standard import Renderer
-    from arkoserenderer_tpu.rendering.pipeline import PipelineConfig
-    from arkoserenderer_tpu.scene.camera import Camera
-    from arkoserenderer_tpu.scene.lights import DirectionalLight
+    from arkoserenderer.assets.gltf import load_gltf
+    from arkoserenderer.core.types import RasterConfig, SceneLimits
+    from arkoserenderer.models.standard import Renderer
+    from arkoserenderer.rendering.pipeline import PipelineConfig
+    from arkoserenderer.scene.camera import Camera
+    from arkoserenderer.scene.lights import DirectionalLight
 
     lim = SceneLimits(max_vertices=1 << 16, max_indices=3 << 16, max_drawables=16,
                       max_materials=8, max_textures=16, texture_pool_texels=1 << 21)
-    from arkoserenderer_tpu.scene.scene import Scene
+    from arkoserenderer.scene.scene import Scene
 
     scene = Scene(limits=lim)
     load_gltf(scene, SAMPLES / "CesiumMan" / "CesiumMan.gltf", max_texture_size=64)

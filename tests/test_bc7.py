@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from arkoserenderer_tpu.assets import bc7
+from arkoserenderer.assets import bc7
 
 
 def test_bc7_roundtrip_smooth_gradient():
@@ -71,7 +71,7 @@ def test_bc7_two_color_block_near_exact():
 def test_bc7_dds_container_roundtrip():
     import struct
 
-    from arkoserenderer_tpu.assets import external as ext
+    from arkoserenderer.assets import external as ext
 
     rng = np.random.default_rng(9)
     img = rng.integers(0, 256, (8, 8, 4), np.uint8)
@@ -101,7 +101,7 @@ def test_bc7_all_modes_match_independent_decoder():
     except Exception:
         pytest.skip("Pillow BCn decoder unavailable")
 
-    from arkoserenderer_tpu.assets.bc7 import decompress_bc7
+    from arkoserenderer.assets.bc7 import decompress_bc7
 
     rng = np.random.default_rng(7)
     for mode in range(8):

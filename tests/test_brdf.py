@@ -1,7 +1,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from arkoserenderer_tpu.ops import brdf
+from arkoserenderer.ops import brdf
 
 
 def _dirs(n):

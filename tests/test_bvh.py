@@ -1,8 +1,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from arkoserenderer_tpu.assets.procedural import make_box, make_uv_sphere
-from arkoserenderer_tpu.ops import bvh as bvh_ops
+from arkoserenderer.assets.procedural import make_box, make_uv_sphere
+from arkoserenderer.ops import bvh as bvh_ops
 
 
 def scene_soup(rng, n_tris=300):

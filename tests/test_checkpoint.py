@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from arkoserenderer_tpu.assets.procedural import build_test_scene
-from arkoserenderer_tpu.core.types import RasterConfig
-from arkoserenderer_tpu.models.standard import Renderer
-from arkoserenderer_tpu.rendering.pipeline import PipelineConfig
+from arkoserenderer.assets.procedural import build_test_scene
+from arkoserenderer.core.types import RasterConfig
+from arkoserenderer.models.standard import Renderer
+from arkoserenderer.rendering.pipeline import PipelineConfig
 
 CFG = PipelineConfig(
     width=96, height=96,
@@ -37,7 +37,7 @@ def test_checkpoint_resume_continues_taa_history(tmp_path):
 
 @pytest.mark.heavy  # multi-frame convergence: nightly lane
 def test_pathtracer_checkpoint_resume_bitexact(tmp_path):
-    from arkoserenderer_tpu.models.pathtracer import PathTracer
+    from arkoserenderer.models.pathtracer import PathTracer
 
     path = str(tmp_path / "pt.npz")
     scene, cam = build_test_scene(viewport=(64, 64), n_spheres=1)

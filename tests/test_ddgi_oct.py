@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from arkoserenderer_tpu.ops import ddgi
+from arkoserenderer.ops import ddgi
 
 
 def test_oct_wrap_maps_into_range():
@@ -48,9 +48,9 @@ def test_probe_relocation_escapes_geometry():
     relocation pass must push it toward the surface (nonzero clamped offset)
     and reduce its backface exposure."""
     import jax
-    from arkoserenderer_tpu.assets.procedural import make_box
-    from arkoserenderer_tpu.core.types import SceneLimits
-    from arkoserenderer_tpu.scene.scene import Material, Scene
+    from arkoserenderer.assets.procedural import make_box
+    from arkoserenderer.core.types import SceneLimits
+    from arkoserenderer.scene.scene import Material, Scene
 
     scene = Scene(limits=SceneLimits(
         max_vertices=256, max_indices=256, max_drawables=4, max_materials=4,

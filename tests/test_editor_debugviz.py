@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from arkoserenderer_tpu.assets.procedural import build_test_scene
-from arkoserenderer_tpu.core.types import RasterConfig
-from arkoserenderer_tpu.models.standard import Renderer
-from arkoserenderer_tpu.rendering.pipeline import PipelineConfig
-from arkoserenderer_tpu.scene.editor import EditorScene, gizmo_axis_drag
+from arkoserenderer.assets.procedural import build_test_scene
+from arkoserenderer.core.types import RasterConfig
+from arkoserenderer.models.standard import Renderer
+from arkoserenderer.rendering.pipeline import PipelineConfig
+from arkoserenderer.scene.editor import EditorScene, gizmo_axis_drag
 
 CFG = PipelineConfig(
     width=96, height=96,
@@ -38,7 +38,7 @@ def test_editor_select_move_rebuild():
 
 
 def test_gizmo_axis_drag_sign_and_scale():
-    from arkoserenderer_tpu.scene.camera import Camera
+    from arkoserenderer.scene.camera import Camera
 
     cam = Camera(viewport=(200, 200))
     cam.look_at((0, 0, 10), (0, 0, 0))
@@ -58,7 +58,7 @@ def test_gizmo_axis_drag_sign_and_scale():
 @pytest.mark.parametrize("mode", ["visibility", "instance", "depth", "normal",
                                   "base_color", "roughness"])
 def test_debug_visualize_modes(mode):
-    from arkoserenderer_tpu.rendering.passes.debugviz import DebugVisualizePass
+    from arkoserenderer.rendering.passes.debugviz import DebugVisualizePass
 
     scene, cam = build_test_scene(viewport=(96, 96), n_spheres=1)
     r = Renderer(scene, cam, CFG, taa=False, bloom=False)
@@ -73,7 +73,7 @@ def test_debug_visualize_modes(mode):
 def test_light_icon_billboards():
     """IconManager analogue: lightbulb splats at light positions, tinted by
     light color, depth-tested against the scene."""
-    from arkoserenderer_tpu.scene.lights import PointLight
+    from arkoserenderer.scene.lights import PointLight
 
     scene, cam = build_test_scene(viewport=(96, 96), n_spheres=1)
     scene.points.append(PointLight(

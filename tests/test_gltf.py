@@ -6,9 +6,9 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from arkoserenderer_tpu.assets.gltf import load_gltf, parse_gltf, read_accessor
-from arkoserenderer_tpu.core.types import SceneLimits
-from arkoserenderer_tpu.scene.scene import Scene
+from arkoserenderer.assets.gltf import load_gltf, parse_gltf, read_accessor
+from arkoserenderer.core.types import SceneLimits
+from arkoserenderer.scene.scene import Scene
 
 SAMPLES = Path("/root/reference/assets/assets/sample/models")
 
@@ -72,12 +72,12 @@ def test_accessor_decode_head_positions():
 
 
 def test_cornell_interior_renders():
-    from arkoserenderer_tpu.core.types import RasterConfig
-    from arkoserenderer_tpu.models.standard import Renderer
-    from arkoserenderer_tpu.rendering.pipeline import PipelineConfig
-    from arkoserenderer_tpu.scene.camera import Camera
-    from arkoserenderer_tpu.scene.lights import DirectionalLight
-    from arkoserenderer_tpu.assets.procedural import gradient_env_map
+    from arkoserenderer.core.types import RasterConfig
+    from arkoserenderer.models.standard import Renderer
+    from arkoserenderer.rendering.pipeline import PipelineConfig
+    from arkoserenderer.scene.camera import Camera
+    from arkoserenderer.scene.lights import DirectionalLight
+    from arkoserenderer.assets.procedural import gradient_env_map
 
     scene = Scene(
         limits=SceneLimits(

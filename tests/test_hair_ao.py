@@ -2,11 +2,11 @@
 
 import numpy as np
 
-from arkoserenderer_tpu.assets.procedural import build_test_scene
-from arkoserenderer_tpu.core.types import RasterConfig
-from arkoserenderer_tpu.models.standard import Renderer
-from arkoserenderer_tpu.rendering.pipeline import PipelineConfig
-from arkoserenderer_tpu.scene.scene import Material
+from arkoserenderer.assets.procedural import build_test_scene
+from arkoserenderer.core.types import RasterConfig
+from arkoserenderer.models.standard import Renderer
+from arkoserenderer.rendering.pipeline import PipelineConfig
+from arkoserenderer.scene.scene import Material
 
 CFG = PipelineConfig(
     width=96, height=96,
@@ -50,7 +50,7 @@ def test_hair_renders_and_faces_camera():
 
 
 def test_bake_vertex_ao_concavity():
-    from arkoserenderer_tpu.ops.bake_ao import bake_vertex_ao
+    from arkoserenderer.ops.bake_ao import bake_vertex_ao
 
     scene, cam = build_test_scene(viewport=(64, 64), n_spheres=1)
     arrays = scene.build(with_bvh=True)

@@ -1,6 +1,6 @@
 import numpy as np
 
-from arkoserenderer_tpu.core import halton
+from arkoserenderer.core import halton
 
 
 def test_halton_base2_first_values():

@@ -1,10 +1,10 @@
 import jax.numpy as jnp
 import numpy as np
 
-from arkoserenderer_tpu.core import mathx as mx
-from arkoserenderer_tpu.core.types import RasterConfig
-from arkoserenderer_tpu.ops import interpolate as ip
-from arkoserenderer_tpu.ops import raster
+from arkoserenderer.core import mathx as mx
+from arkoserenderer.core.types import RasterConfig
+from arkoserenderer.ops import interpolate as ip
+from arkoserenderer.ops import raster
 
 W, H = 64, 64
 CFG = RasterConfig(tile_h=8, tile_w=16, max_tris_per_tile=64, bin_chunk=32)

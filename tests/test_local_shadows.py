@@ -3,11 +3,11 @@
 
 import numpy as np
 
-from arkoserenderer_tpu.assets.procedural import build_test_scene
-from arkoserenderer_tpu.core.types import RasterConfig
-from arkoserenderer_tpu.models.standard import Renderer
-from arkoserenderer_tpu.rendering.pipeline import PipelineConfig
-from arkoserenderer_tpu.scene.lights import SpotLight
+from arkoserenderer.assets.procedural import build_test_scene
+from arkoserenderer.core.types import RasterConfig
+from arkoserenderer.models.standard import Renderer
+from arkoserenderer.rendering.pipeline import PipelineConfig
+from arkoserenderer.scene.lights import SpotLight
 
 CFG = PipelineConfig(
     width=96, height=96,

@@ -3,11 +3,11 @@
 
 import numpy as np
 
-from arkoserenderer_tpu.assets.procedural import build_test_scene, make_uv_sphere
-from arkoserenderer_tpu.core.types import RasterConfig
-from arkoserenderer_tpu.models.standard import Renderer
-from arkoserenderer_tpu.rendering.pipeline import PipelineConfig
-from arkoserenderer_tpu.scene.scene import Material
+from arkoserenderer.assets.procedural import build_test_scene, make_uv_sphere
+from arkoserenderer.core.types import RasterConfig
+from arkoserenderer.models.standard import Renderer
+from arkoserenderer.rendering.pipeline import PipelineConfig
+from arkoserenderer.scene.scene import Material
 
 CFG = PipelineConfig(
     width=96, height=96,

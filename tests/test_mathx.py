@@ -1,7 +1,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from arkoserenderer_tpu.core import mathx as mx
+from arkoserenderer.core import mathx as mx
 
 
 def test_quat_rotate_matches_mat3(rng):

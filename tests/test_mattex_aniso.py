@@ -9,9 +9,9 @@ a brute-force footprint integral.
 import numpy as np
 import jax.numpy as jnp
 
-from arkoserenderer_tpu.assets.procedural import checkerboard_texture
-from arkoserenderer_tpu.ops import mattex
-from arkoserenderer_tpu.scene.scene import Material
+from arkoserenderer.assets.procedural import checkerboard_texture
+from arkoserenderer.ops import mattex
+from arkoserenderer.scene.scene import Material
 
 
 CHECKER_ID = 4  # ids 0-3 are the pool's reserved defaults

@@ -2,10 +2,10 @@
 
 import numpy as np
 
-from arkoserenderer_tpu.assets.procedural import build_test_scene
-from arkoserenderer_tpu.core.types import RasterConfig
-from arkoserenderer_tpu.models.standard import Renderer
-from arkoserenderer_tpu.rendering.pipeline import PipelineConfig
+from arkoserenderer.assets.procedural import build_test_scene
+from arkoserenderer.core.types import RasterConfig
+from arkoserenderer.models.standard import Renderer
+from arkoserenderer.rendering.pipeline import PipelineConfig
 
 CFG = PipelineConfig(
     width=96, height=96,

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from arkoserenderer_tpu.assets import meshopt
-from arkoserenderer_tpu.assets.procedural import make_uv_sphere
+from arkoserenderer.assets import meshopt
+from arkoserenderer.assets.procedural import make_uv_sphere
 
 
 @pytest.fixture(scope="module")

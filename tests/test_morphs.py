@@ -5,10 +5,10 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from arkoserenderer_tpu.assets.procedural import build_test_scene, make_uv_sphere
-from arkoserenderer_tpu.core.types import RasterConfig
-from arkoserenderer_tpu.models.standard import Renderer
-from arkoserenderer_tpu.rendering.pipeline import PipelineConfig
+from arkoserenderer.assets.procedural import build_test_scene, make_uv_sphere
+from arkoserenderer.core.types import RasterConfig
+from arkoserenderer.models.standard import Renderer
+from arkoserenderer.rendering.pipeline import PipelineConfig
 
 CFG = PipelineConfig(
     width=96, height=96,
@@ -49,11 +49,11 @@ def test_morph_weights_deform_geometry():
 
 @pytest.mark.skipif(not MORPH_GLTF.exists(), reason="no reference test asset")
 def test_simple_morph_gltf_animates():
-    from arkoserenderer_tpu.assets.gltf import load_gltf
-    from arkoserenderer_tpu.core.types import SceneLimits
-    from arkoserenderer_tpu.scene.camera import Camera
-    from arkoserenderer_tpu.scene.lights import DirectionalLight
-    from arkoserenderer_tpu.scene.scene import Scene
+    from arkoserenderer.assets.gltf import load_gltf
+    from arkoserenderer.core.types import SceneLimits
+    from arkoserenderer.scene.camera import Camera
+    from arkoserenderer.scene.lights import DirectionalLight
+    from arkoserenderer.scene.scene import Scene
 
     scene = Scene(limits=SceneLimits(
         max_vertices=1 << 12, max_indices=3 << 12, max_drawables=8,
@@ -64,7 +64,7 @@ def test_simple_morph_gltf_animates():
     assert info.has_morphs
     # Light the (+Z-facing) triangle head-on and add sky so it's visible.
     scene.sun = DirectionalLight(direction=np.array([0.1, -0.3, -1.0], np.float32))
-    from arkoserenderer_tpu.assets.procedural import gradient_env_map
+    from arkoserenderer.assets.procedural import gradient_env_map
 
     scene.set_env_map(gradient_env_map(16), brightness=8000.0)
     cam = Camera(viewport=(64, 64))
@@ -84,7 +84,7 @@ def test_multiple_independent_morph_blocks():
     """Round 3: multiple morphing meshes per scene (the reference has no
     one-morph-limit; each morphed instance owns a vertex-pool block with
     independent weights)."""
-    from arkoserenderer_tpu.assets.procedural import make_uv_sphere
+    from arkoserenderer.assets.procedural import make_uv_sphere
 
     scene, cam = build_test_scene(viewport=(96, 96), n_spheres=1)
     # First morph mesh: the built-in sphere (instance 1, segment 1).

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from arkoserenderer_tpu.assets.procedural import build_test_scene
-from arkoserenderer_tpu.models.pathtracer import PathTracer
+from arkoserenderer.assets.procedural import build_test_scene
+from arkoserenderer.models.pathtracer import PathTracer
 
 W = H = 64
 
@@ -62,9 +62,9 @@ def test_matches_raster_rough_energy():
     # The raster pipeline's direct+ambient approximation and the path tracer
     # should agree on overall image brightness within ~3x (sanity check that
     # units/exposure are consistent across both pipelines).
-    from arkoserenderer_tpu.core.types import RasterConfig
-    from arkoserenderer_tpu.models.standard import Renderer
-    from arkoserenderer_tpu.rendering.pipeline import PipelineConfig
+    from arkoserenderer.core.types import RasterConfig
+    from arkoserenderer.models.standard import Renderer
+    from arkoserenderer.rendering.pipeline import PipelineConfig
 
     scene, cam = build_test_scene(viewport=(W, H))
     cfg = PipelineConfig(

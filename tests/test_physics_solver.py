@@ -5,7 +5,7 @@ activation (sleeping)."""
 
 import numpy as np
 
-from arkoserenderer_tpu.physics.backend import (
+from arkoserenderer.physics.backend import (
     BodyDesc,
     BuiltinPhysicsBackend,
 )

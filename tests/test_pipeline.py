@@ -4,10 +4,10 @@ analogue: forward shading + shadow-mapped sun, CPU/interpret path)."""
 import numpy as np
 import pytest
 
-from arkoserenderer_tpu.assets.procedural import build_test_scene
-from arkoserenderer_tpu.core.types import RasterConfig
-from arkoserenderer_tpu.models.standard import Renderer
-from arkoserenderer_tpu.rendering.pipeline import PipelineConfig
+from arkoserenderer.assets.procedural import build_test_scene
+from arkoserenderer.core.types import RasterConfig
+from arkoserenderer.models.standard import Renderer
+from arkoserenderer.rendering.pipeline import PipelineConfig
 
 W, H = 128, 128
 CFG = PipelineConfig(
@@ -92,9 +92,9 @@ def test_bindless_pressure_scene_renders():
     binds a distinct material; texture chains diverge per pixel. Exercises
     the packed material records + channel-packed texture pool under real
     bindless pressure (GpuScene.h:259-282's capacity story)."""
-    from arkoserenderer_tpu.assets.procedural import build_bindless_scene
-    from arkoserenderer_tpu.core.types import RasterConfig
-    from arkoserenderer_tpu.rendering.pipeline import PipelineConfig
+    from arkoserenderer.assets.procedural import build_bindless_scene
+    from arkoserenderer.core.types import RasterConfig
+    from arkoserenderer.rendering.pipeline import PipelineConfig
 
     cfg = PipelineConfig(
         width=128, height=128,

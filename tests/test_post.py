@@ -5,11 +5,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from arkoserenderer_tpu.assets.procedural import build_test_scene
-from arkoserenderer_tpu.core.types import RasterConfig
-from arkoserenderer_tpu.models.standard import Renderer
-from arkoserenderer_tpu.ops import postprocess as pp
-from arkoserenderer_tpu.rendering.pipeline import PipelineConfig
+from arkoserenderer.assets.procedural import build_test_scene
+from arkoserenderer.core.types import RasterConfig
+from arkoserenderer.models.standard import Renderer
+from arkoserenderer.ops import postprocess as pp
+from arkoserenderer.rendering.pipeline import PipelineConfig
 
 W, H = 128, 128
 CFG = PipelineConfig(
@@ -39,11 +39,11 @@ def test_full_post_chain_renders():
 def test_ssao_darkens_concave_corner():
     # Two perpendicular planes forming a corner: AO at the corner < AO in
     # the open area.
-    from arkoserenderer_tpu.scene.scene import Scene, MeshSegment
-    from arkoserenderer_tpu.assets.procedural import make_plane, make_box
-    from arkoserenderer_tpu.scene.camera import Camera
-    from arkoserenderer_tpu.core.types import SceneLimits
-    from arkoserenderer_tpu.scene.lights import DirectionalLight
+    from arkoserenderer.scene.scene import Scene, MeshSegment
+    from arkoserenderer.assets.procedural import make_plane, make_box
+    from arkoserenderer.scene.camera import Camera
+    from arkoserenderer.core.types import SceneLimits
+    from arkoserenderer.scene.lights import DirectionalLight
 
     lim = SceneLimits(max_vertices=1 << 12, max_indices=3 << 12, max_drawables=8,
                       max_materials=4, max_textures=8, texture_pool_texels=1 << 16)

@@ -1,10 +1,10 @@
 import jax.numpy as jnp
 import numpy as np
 
-from arkoserenderer_tpu.core import mathx as mx
-from arkoserenderer_tpu.core.types import VIS_NONE, RasterConfig
-from arkoserenderer_tpu.ops import raster
-from arkoserenderer_tpu.ops.raster_reference import rasterize_numpy
+from arkoserenderer.core import mathx as mx
+from arkoserenderer.core.types import VIS_NONE, RasterConfig
+from arkoserenderer.ops import raster
+from arkoserenderer.ops.raster_reference import rasterize_numpy
 
 CFG = RasterConfig(tile_h=8, tile_w=16, max_tris_per_tile=64, bin_chunk=32)
 W, H = 64, 64
@@ -137,7 +137,7 @@ def test_near_plane_clipping_floor():
     # cover the bottom of the screen, and interpolated original barycentrics
     # must still reproject onto the pixel exactly.
     import jax.numpy as jnp
-    from arkoserenderer_tpu.ops import interpolate as ip
+    from arkoserenderer.ops import interpolate as ip
 
     verts = np.array(
         [[-50.0, -1.0, 50.0], [50.0, -1.0, 50.0], [50.0, -1.0, -50.0], [-50.0, -1.0, -50.0]],
@@ -185,15 +185,15 @@ def test_tile_chunked_raster_matches_plain(monkeypatch):
     vmap path."""
     import jax.numpy as jnp
 
-    from arkoserenderer_tpu.assets.procedural import build_test_scene
-    from arkoserenderer_tpu.core.types import RasterConfig
-    from arkoserenderer_tpu.ops import raster as R
+    from arkoserenderer.assets.procedural import build_test_scene
+    from arkoserenderer.core.types import RasterConfig
+    from arkoserenderer.ops import raster as R
 
     scene, cam = build_test_scene(viewport=(128, 128))
     arrays = scene.build()
     cfg = RasterConfig(tile_h=8, tile_w=8, max_tris_per_tile=256, bin_chunk=512)
     clipm = cam.state(0).view_proj
-    from arkoserenderer_tpu.core import mathx as mx
+    from arkoserenderer.core import mathx as mx
 
     w = np.asarray(arrays.world)[np.asarray(arrays.vertex_instance)]
     wp = np.einsum("vij,vj->vi", w[:, :3, :3], np.asarray(arrays.positions)) + w[:, :3, 3]

@@ -4,10 +4,10 @@
 import numpy as np
 import pytest
 
-from arkoserenderer_tpu.assets.procedural import build_test_scene
-from arkoserenderer_tpu.core.types import RasterConfig
-from arkoserenderer_tpu.models.standard import Renderer
-from arkoserenderer_tpu.rendering.pipeline import PipelineConfig
+from arkoserenderer.assets.procedural import build_test_scene
+from arkoserenderer.core.types import RasterConfig
+from arkoserenderer.models.standard import Renderer
+from arkoserenderer.rendering.pipeline import PipelineConfig
 
 W = H = 96
 CFG = PipelineConfig(
@@ -63,7 +63,7 @@ def test_ddgi_probe_update_and_sampling():
 
 
 def test_ddgi_grid_fit():
-    from arkoserenderer_tpu.ops.ddgi import ProbeGridConfig, probe_positions
+    from arkoserenderer.ops.ddgi import ProbeGridConfig, probe_positions
 
     cfg = ProbeGridConfig.fit_bounds(np.array([1.0, 2.0, 3.0]), 5.0)
     pos = probe_positions(cfg)
@@ -76,7 +76,7 @@ def test_ddgi_grid_fit():
 def test_octahedral_roundtrip(rng):
     import jax.numpy as jnp
 
-    from arkoserenderer_tpu.ops.ddgi import octahedral_decode, octahedral_encode
+    from arkoserenderer.ops.ddgi import octahedral_decode, octahedral_encode
 
     d = rng.normal(size=(256, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
@@ -88,8 +88,8 @@ def test_octahedral_roundtrip(rng):
 
 @pytest.mark.heavy  # multi-frame convergence: nightly lane
 def test_ddgi_probe_debug_overlay():
-    from arkoserenderer_tpu.ops.ddgi import ProbeGridConfig
-    from arkoserenderer_tpu.rendering.passes.ddgi_debug import DDGIProbeDebugPass
+    from arkoserenderer.ops.ddgi import ProbeGridConfig
+    from arkoserenderer.rendering.passes.ddgi_debug import DDGIProbeDebugPass
 
     scene, cam = build_test_scene(viewport=(W, H), n_spheres=1)
     center, radius = scene.bounding_sphere()
@@ -144,7 +144,7 @@ def test_rt_reflections_temporal_accumulation_converges():
     output is temporally more stable than the raw per-frame reflections
     (the raster stays Halton-jittered, so the raw signal flickers), and the
     sample-count state accumulates."""
-    from arkoserenderer_tpu.rendering.passes.rt import RTReflectionsPass
+    from arkoserenderer.rendering.passes.rt import RTReflectionsPass
 
     def run(temporal):
         scene, cam = build_test_scene(viewport=(W, H), n_spheres=1)
@@ -186,7 +186,7 @@ def test_mirror_reflections_match_path_tracer_energy():
     + shadow + SH ambient); the remaining deficit vs the converged path
     tracer is recursive self-reflection (single-bounce limitation, same as
     the reference's RTReflectionsNode)."""
-    from arkoserenderer_tpu.models.pathtracer import PathTracer
+    from arkoserenderer.models.pathtracer import PathTracer
 
     def mk():
         s, c = build_test_scene(viewport=(W, H), n_spheres=1)
@@ -223,9 +223,9 @@ def test_masked_transparent_triangles_excluded_from_rt():
     alpha-tested card but are blocked by the opaque half."""
     import jax.numpy as jnp
 
-    from arkoserenderer_tpu.ops.bvh import trace_rays
-    from arkoserenderer_tpu.scene.scene import BLEND_MASKED, Material, Scene
-    from arkoserenderer_tpu.core.types import SceneLimits
+    from arkoserenderer.ops.bvh import trace_rays
+    from arkoserenderer.scene.scene import BLEND_MASKED, Material, Scene
+    from arkoserenderer.core.types import SceneLimits
 
     scene = Scene(limits=SceneLimits(
         max_vertices=1 << 12, max_indices=3 << 12, max_drawables=16,
@@ -242,7 +242,7 @@ def test_masked_transparent_triangles_excluded_from_rt():
     # Subdivided card (8x8 grid): the diagonal 2-triangle plane would leave
     # every triangle "mixed"; a grid gives fully-transparent triangles on
     # the empty half.
-    from arkoserenderer_tpu.apps.geodata import terrain_segment
+    from arkoserenderer.apps.geodata import terrain_segment
 
     card = terrain_segment(np.zeros((9, 9), np.float32), extent=2.0,
                            height_scale=0.0)
@@ -288,7 +288,7 @@ def test_reflections_carry_local_light():
     a mirror sphere's reflection of the lit floor brightens when the spot
     turns on — and the spot in this setup does not light the sphere's own
     pixels directly (it is outside the cone)."""
-    from arkoserenderer_tpu.scene.lights import SpotLight
+    from arkoserenderer.scene.lights import SpotLight
 
     def mk(with_spot):
         s, c = build_test_scene(viewport=(W, H), n_spheres=1)
@@ -330,7 +330,7 @@ def test_ddgi_probes_collect_local_light():
     """Probe rays evaluate local lights at their hits: with the sun and
     environment off, a spot on the floor is the only energy and DDGI
     irradiance must be nonzero (and zero without the light)."""
-    from arkoserenderer_tpu.scene.lights import SpotLight
+    from arkoserenderer.scene.lights import SpotLight
 
     def irr(with_spot):
         s, c = build_test_scene(viewport=(W, H), n_spheres=1)

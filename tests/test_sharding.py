@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from arkoserenderer_tpu.assets.procedural import build_test_scene
-from arkoserenderer_tpu.core.types import RasterConfig
-from arkoserenderer_tpu.models.standard import Renderer
-from arkoserenderer_tpu.parallel.sharded import ShardedRenderer
-from arkoserenderer_tpu.rendering.pipeline import PipelineConfig
+from arkoserenderer.assets.procedural import build_test_scene
+from arkoserenderer.core.types import RasterConfig
+from arkoserenderer.models.standard import Renderer
+from arkoserenderer.parallel.sharded import ShardedRenderer
+from arkoserenderer.rendering.pipeline import PipelineConfig
 
 W, H = 128, 128
 CFG = PipelineConfig(
@@ -50,7 +50,7 @@ def test_sharded_matches_with_spot_shadow_atlas_and_icons():
     """The round-closing passes (local shadow atlas, icon billboards) must
     be band-correct: each device rasterizes the full (small) spot atlas and
     splats icons only into its own band."""
-    from arkoserenderer_tpu.scene.lights import SpotLight
+    from arkoserenderer.scene.lights import SpotLight
     import dataclasses
 
     cfg = dataclasses.replace(CFG, local_shadow_map_size=64)
@@ -99,7 +99,7 @@ def test_sharded_matches_single_device_rt():
     band-local; the denoiser runs replicated on gathered planes. Two frames
     exercise the temporal history slicing. A shadow-casting spot pulls
     RTLocalShadowPass (per-light any-hit masks) into the sharded frame."""
-    from arkoserenderer_tpu.scene.lights import SpotLight
+    from arkoserenderer.scene.lights import SpotLight
 
     def make():
         scene, cam = build_test_scene(viewport=(W, H), n_spheres=1)
@@ -152,7 +152,7 @@ def test_sharded_matches_single_device_soft_shadows():
     single-device render) and the sigma denoiser runs replicated over
     gathered planes — so three frames of sun + local soft shadows must
     match single-device exactly, temporal history slicing included."""
-    from arkoserenderer_tpu.scene.lights import SpotLight
+    from arkoserenderer.scene.lights import SpotLight
 
     def make():
         scene, cam = build_test_scene(viewport=(W, H), n_spheres=1)
@@ -182,15 +182,15 @@ def test_sharded_matches_single_device_soft_shadows():
 
 @pytest.mark.heavy
 def test_dryrun_full_execute_8_devices(monkeypatch):
-    """The driver probe's ARKTPU_DRYRUN_FULL=1 path, CI-covered so it can't
-    rot (VERDICT r4 weak #5): compile AND EXECUTE all three sharded configs
+    """The multichip dry run's ARK_DRYRUN_FULL=1 path, CI-covered so it
+    can't rot: compile AND EXECUTE all three sharded configs
     (forward+SSAO, RT shadows+reflections, DDGI) on the full 8-device mesh.
     ``dryrun_multichip`` re-execs into a hermetic virtual-CPU subprocess, so
     this runs identically under any pytest platform config; it raises on any
     non-finite pixel or failed collective, which is the assertion."""
     import sys
 
-    monkeypatch.setenv("ARKTPU_DRYRUN_FULL", "1")
+    monkeypatch.setenv("ARK_DRYRUN_FULL", "1")
     sys.path.insert(0, str(__import__("pathlib").Path(__file__).parents[1]))
     try:
         import __graft_entry__
@@ -198,3 +198,25 @@ def test_dryrun_full_execute_8_devices(monkeypatch):
         __graft_entry__.dryrun_multichip(8)
     finally:
         sys.path.pop(0)
+
+
+@pytest.mark.parametrize("height,n_devices,ok", [
+    (1080, 4, False),   # 270-row bands are not whole 8-row tiles
+    (1152, 4, True),
+    (1080, 3, False),   # 360 rows: whole tiles, but 8192 / 3 is not
+    (1152, 8, True),
+])
+def test_band_config_needs_whole_tile_rows(height, n_devices, ok):
+    import dataclasses
+
+    from arkoserenderer.parallel.sharded import band_config
+
+    cfg = dataclasses.replace(CFG, width=1920, height=height,
+                              shadow_map_size=8192)
+    if ok:
+        band = band_config(cfg, n_devices)
+        assert band.height * n_devices == height
+        assert band.full_height == height and band.shard_count == n_devices
+    else:
+        with pytest.raises(ValueError, match="split"):
+            band_config(cfg, n_devices)

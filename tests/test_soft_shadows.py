@@ -6,12 +6,12 @@ between the denoised raster path and the converged stochastic estimator."""
 import numpy as np
 import pytest
 
-from arkoserenderer_tpu.assets.procedural import build_test_scene
-from arkoserenderer_tpu.core import mathx as mx
-from arkoserenderer_tpu.core.types import RasterConfig
-from arkoserenderer_tpu.models.standard import Renderer
-from arkoserenderer_tpu.rendering.pipeline import PipelineConfig
-from arkoserenderer_tpu.scene.lights import SpotLight
+from arkoserenderer.assets.procedural import build_test_scene
+from arkoserenderer.core import mathx as mx
+from arkoserenderer.core.types import RasterConfig
+from arkoserenderer.models.standard import Renderer
+from arkoserenderer.rendering.pipeline import PipelineConfig
+from arkoserenderer.scene.lights import SpotLight
 
 W = H = 96
 CFG = PipelineConfig(
@@ -66,7 +66,7 @@ def test_sample_disk_offset(rng):
 def test_shadow_denoiser_constant_input_is_fixed_point(rng):
     import jax.numpy as jnp
 
-    from arkoserenderer_tpu.ops import shadow_denoise as sdn
+    from arkoserenderer.ops import shadow_denoise as sdn
 
     h = w = 32
     mask = jnp.full((h, w, 1), 0.4, jnp.float32)
@@ -113,8 +113,8 @@ def test_soft_sun_matches_converged_estimator():
     camera, and actually produce a penumbra where the hard sun has none."""
     import jax.numpy as jnp
 
-    from arkoserenderer_tpu.ops.rt import trace_shadow_mask
-    from arkoserenderer_tpu.ops.ssao import reconstruct_world_pos
+    from arkoserenderer.ops.rt import trace_shadow_mask
+    from arkoserenderer.ops.ssao import reconstruct_world_pos
 
     deg = 10.0
     r = _soft_sun_renderer(deg, frames=20)
@@ -214,7 +214,7 @@ def test_soft_spot_shadow_penumbra():
 def test_pathtracer_soft_sun_penumbra():
     """PT parity: a soft sun produces intermediate shadow values where the
     hard sun is binary, with total energy roughly preserved."""
-    from arkoserenderer_tpu.models.pathtracer import PathTracer
+    from arkoserenderer.models.pathtracer import PathTracer
 
     def render(deg, spp):
         scene, cam = build_test_scene(viewport=(48, 48), n_spheres=1)

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from arkoserenderer_tpu.assets.procedural import build_test_scene
-from arkoserenderer_tpu.core.types import RasterConfig
-from arkoserenderer_tpu.models.standard import Renderer
-from arkoserenderer_tpu.rendering.pipeline import PipelineConfig
+from arkoserenderer.assets.procedural import build_test_scene
+from arkoserenderer.core.types import RasterConfig
+from arkoserenderer.models.standard import Renderer
+from arkoserenderer.rendering.pipeline import PipelineConfig
 
 CFG = PipelineConfig(
     width=96, height=96,
@@ -50,7 +50,7 @@ def test_upscale_pass_produces_display_res():
 
 
 def test_ideal_render_resolution():
-    from arkoserenderer_tpu.ops.upscale import ideal_render_resolution
+    from arkoserenderer.ops.upscale import ideal_render_resolution
 
     w, h = ideal_render_resolution(1920, 1080, "quality")
     assert w <= 1920 / 1.4 and h <= 1080 / 1.4

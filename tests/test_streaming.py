@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from arkoserenderer_tpu.assets.procedural import build_test_scene, make_box
-from arkoserenderer_tpu.core.types import RasterConfig
-from arkoserenderer_tpu.models.standard import Renderer
-from arkoserenderer_tpu.rendering.pipeline import PipelineConfig
-from arkoserenderer_tpu.scene.scene import Material
+from arkoserenderer.assets.procedural import build_test_scene, make_box
+from arkoserenderer.core.types import RasterConfig
+from arkoserenderer.models.standard import Renderer
+from arkoserenderer.rendering.pipeline import PipelineConfig
+from arkoserenderer.scene.scene import Material
 
 CFG = PipelineConfig(
     width=96, height=96,
@@ -92,8 +92,8 @@ def test_budgeted_streaming_state_machine():
     GpuScene.cpp:483-553): a large mesh loads across MULTIPLE frames under a
     per-frame byte budget while the renderer keeps producing frames with the
     same compiled function; the instance appears only once fully loaded."""
-    from arkoserenderer_tpu.assets.procedural import make_uv_sphere
-    from arkoserenderer_tpu.rendering.streaming import LOADED, StreamingManager
+    from arkoserenderer.assets.procedural import make_uv_sphere
+    from arkoserenderer.rendering.streaming import LOADED, StreamingManager
 
     scene, cam = build_test_scene(viewport=(96, 96), n_spheres=1)
     red = scene.add_material(Material(
@@ -160,7 +160,7 @@ def test_async_prepare_then_stream():
     """enqueue_async runs the prepare step on a TaskGraph worker (the
     reference's background asset loads) and the ticket flows through the
     same budgeted state machine once ready."""
-    from arkoserenderer_tpu.rendering.streaming import LOADED, StreamingManager
+    from arkoserenderer.rendering.streaming import LOADED, StreamingManager
 
     scene, cam = build_test_scene(viewport=(96, 96), n_spheres=1)
     blue = scene.add_material(Material(
@@ -278,7 +278,7 @@ def test_streamed_material_via_streaming_manager_budget():
     """The same texture chain through the budgeted StreamingManager: texel
     rows upload over several ticks under a small byte budget, and the
     material record lands LAST (a half-resident material never samples)."""
-    from arkoserenderer_tpu.rendering.streaming import StreamingManager
+    from arkoserenderer.rendering.streaming import StreamingManager
 
     scene, cam = build_test_scene(viewport=(96, 96), n_spheres=1)
     r = Renderer(scene, cam, CFG, taa=False, bloom=False)
@@ -335,7 +335,7 @@ def test_streamed_instance_rt_via_streaming_manager():
     """Same path through the budgeted StreamingManager: the ticket's BVH
     rows upload under budget and the completion refit makes the instance
     visible to RT within a bounded number of frames."""
-    from arkoserenderer_tpu.rendering.streaming import StreamingManager
+    from arkoserenderer.rendering.streaming import StreamingManager
 
     scene, cam = build_test_scene(viewport=(96, 96), n_spheres=1)
     r = Renderer(scene, cam, CFG, rt_shadows=True, taa=False, bloom=False)
@@ -361,7 +361,7 @@ def test_streamed_skinned_instance_matches_rebuild():
     allocateSkeletalMeshInstance analogue): a skinned instance streamed into
     a live scene must render identically to the same scene built from
     scratch (palette range allocation, skin pool rows, skinned vertex path)."""
-    from arkoserenderer_tpu.scene.animation import Skeleton
+    from arkoserenderer.scene.animation import Skeleton
 
     def skinned_scene(extra: bool):
         scene, cam = build_test_scene(viewport=(96, 96), n_spheres=1)
@@ -420,7 +420,7 @@ def test_streamed_skinned_instance_matches_rebuild():
 
 def test_streamed_skinned_requires_skin_path():
     scene, cam = build_test_scene(viewport=(96, 96), n_spheres=1)
-    from arkoserenderer_tpu.scene.animation import Skeleton
+    from arkoserenderer.scene.animation import Skeleton
 
     skel = scene.add_skeleton(Skeleton(
         parents=np.array([-1], np.int32),

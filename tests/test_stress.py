@@ -1,19 +1,19 @@
 """Culling stress scene (ShowcaseApp.cpp:381-412 analogue) — instanced
 rendering, per-frame transform streaming, and RT over the instanced TLAS.
 
-CPU-sized here (256 instances); bench.py --stress runs the full 4,096 on
-the TPU.
+CPU-sized here (256 instances); bench.py --config stress runs the full
+4,096 on the GPU.
 """
 
 import numpy as np
 
-from arkoserenderer_tpu.assets.procedural import (
+from arkoserenderer.assets.procedural import (
     animate_stress_scene,
     build_stress_scene,
 )
-from arkoserenderer_tpu.core.types import RasterConfig
-from arkoserenderer_tpu.models.standard import Renderer
-from arkoserenderer_tpu.rendering.pipeline import PipelineConfig
+from arkoserenderer.core.types import RasterConfig
+from arkoserenderer.models.standard import Renderer
+from arkoserenderer.rendering.pipeline import PipelineConfig
 
 CFG = PipelineConfig(
     width=128, height=128,
@@ -45,7 +45,7 @@ def test_stress_scene_instanced_tlas_rt():
         shadow_map_size=256,
     )
     r = Renderer(scene, cam, cfg, rt_shadows=True, taa=False, bloom=False)
-    from arkoserenderer_tpu.ops.bvh import TwoLevelBVH
+    from arkoserenderer.ops.bvh import TwoLevelBVH
 
     bvh = r.scene_arrays.bvh
     assert isinstance(bvh, TwoLevelBVH)
@@ -78,9 +78,9 @@ def test_reference_capacity_pools_allocate():
     284): the SceneLimits DEFAULTS now match the reference (12M vertices /
     48M indices / 65,536 drawables / 10,000 materials / 4,096 textures) and
     a scene builds its fixed-shape pools at that scale. (The full render at
-    these pool sizes runs in the slow marker / on TPU via bench --stress —
+    these pool sizes runs in the slow marker / on the GPU via bench —
     per-triangle masks over a 16M-row pool take minutes on XLA:CPU.)"""
-    from arkoserenderer_tpu.core.types import SceneLimits
+    from arkoserenderer.core.types import SceneLimits
 
     lim = SceneLimits()
     assert lim.max_vertices == 12 << 20
@@ -89,7 +89,7 @@ def test_reference_capacity_pools_allocate():
     assert lim.max_materials == 10000
     assert lim.max_textures == 4096
 
-    from arkoserenderer_tpu.assets.procedural import build_stress_scene
+    from arkoserenderer.assets.procedural import build_stress_scene
 
     scene, cam = build_stress_scene(
         n_instances=512, viewport=(96, 96),
@@ -112,7 +112,7 @@ def test_device_animator_matches_host_path():
     """The traced scene_animator (bench's device-side bob+spin) must produce
     the same frame as the host animate + update_instance_transforms path at
     the same time value."""
-    from arkoserenderer_tpu.assets.procedural import make_stress_animator
+    from arkoserenderer.assets.procedural import make_stress_animator
 
     dt = 1 / 60
     # Host path: animate to t = k*dt before frame k, so the final frame has

@@ -2,15 +2,15 @@
 
 import numpy as np
 
-from arkoserenderer_tpu.physics.backend import (
+from arkoserenderer.physics.backend import (
     BodyDesc,
     BuiltinPhysicsBackend,
     PhysicsScene,
 )
-from arkoserenderer_tpu.scene.camera import Camera
-from arkoserenderer_tpu.scene.controllers import FpsCameraController, MapCameraController
-from arkoserenderer_tpu.system.input import Input
-from arkoserenderer_tpu.system.system import HeadlessSystem, ReplaySystem
+from arkoserenderer.scene.camera import Camera
+from arkoserenderer.scene.controllers import FpsCameraController, MapCameraController
+from arkoserenderer.system.input import Input
+from arkoserenderer.system.system import HeadlessSystem, ReplaySystem
 
 
 def test_input_edges_and_axes():
@@ -45,7 +45,7 @@ def test_fps_controller_mouse_look():
     inp.push_mouse_move(200, 0)
     ctl.update(inp, 1 / 60)
     fwd = np.asarray(
-        __import__("arkoserenderer_tpu.core.mathx", fromlist=["quat_rotate"]).quat_rotate(
+        __import__("arkoserenderer.core.mathx", fromlist=["quat_rotate"]).quat_rotate(
             cam.orientation, np.array([0, 0, -1.0], np.float32), xp=np
         )
     )
@@ -89,7 +89,7 @@ def test_physics_ball_bounces_and_settles():
 
 
 def test_physics_impulse_and_scene_sync():
-    from arkoserenderer_tpu.assets.procedural import build_test_scene
+    from arkoserenderer.assets.procedural import build_test_scene
 
     scene, cam = build_test_scene(viewport=(64, 64), n_spheres=1)
     b = BuiltinPhysicsBackend()
@@ -110,11 +110,11 @@ def test_dynamic_transforms_stream_into_renderer():
     """PhysicsScene.commit + Renderer(dynamic_transforms=True): the moved
     body shows up in the next frame without a scene rebuild (incremental
     instance-transform upload)."""
-    from arkoserenderer_tpu.core.types import RasterConfig
-    from arkoserenderer_tpu.models.standard import Renderer
-    from arkoserenderer_tpu.rendering.pipeline import PipelineConfig
+    from arkoserenderer.core.types import RasterConfig
+    from arkoserenderer.models.standard import Renderer
+    from arkoserenderer.rendering.pipeline import PipelineConfig
 
-    from arkoserenderer_tpu.assets.procedural import build_test_scene
+    from arkoserenderer.assets.procedural import build_test_scene
 
     cfg = PipelineConfig(
         width=96, height=96,
@@ -150,7 +150,7 @@ def test_physics_triangle_mesh_collision():
     spins it up; tan(14 deg) < mu, so it cannot merely slide)."""
     import numpy as np
 
-    from arkoserenderer_tpu.physics.backend import BodyDesc, BuiltinPhysicsBackend
+    from arkoserenderer.physics.backend import BodyDesc, BuiltinPhysicsBackend
 
     b = BuiltinPhysicsBackend()
     verts = np.array([[-2, 0, -2], [2, 1, -2], [2, 1, 2], [-2, 0, 2]], np.float32)

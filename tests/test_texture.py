@@ -1,7 +1,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from arkoserenderer_tpu.ops import texture as tx
+from arkoserenderer.ops import texture as tx
 
 
 def make_pool(imgs, srgb=False, wrap=tx.WRAP_REPEAT, mipmapped=True):
@@ -129,96 +129,6 @@ def test_bilinear_quality_close_to_trilinear(rng):
     )
     assert jnp.max(jnp.abs(tri - bil)) < 0.35
     assert jnp.mean(jnp.abs(tri - bil)) < 0.08
-
-
-def test_tile_onehot_matches_bilinear_when_uniform(rng):
-    """The one-hot tile gather is exact vs the standard nearest-mip bilinear
-    path when its contract holds (uniform texture+mip per tile, mip fits)."""
-    b = tx.TexturePoolBuilder(max_textures=8, pool_capacity=1 << 18)
-    img = (rng.random((128, 128, 4)) * 255).astype(np.uint8)
-    tid = b.add(img, srgb=False)
-    pool = b.finalize()
-    n, tile = 2048, 256
-    uv = jnp.asarray(rng.random((n, 2)).astype(np.float32) * 2.5)  # wrapping
-    ids = jnp.full((n,), tid, jnp.int32)
-    lod = jnp.full((n,), 3.0)  # mip 3 = 16x16, fits any budget
-    ref = tx.sample_bilinear_nearest_mip(pool, ids, uv, lod, decode_srgb=False)
-    got = tx.sample_bilinear_tile_onehot(pool, ids, uv, lod, tile=tile,
-                                         decode_srgb=False)
-    assert jnp.max(jnp.abs(got - ref)) < 0.01  # bf16 one-hot matmul rounding
-
-
-def test_tile_onehot_clamps_oversized_mips_coarser(rng):
-    """Magnified tiles (mip 0 of a big texture exceeds the budget) clamp to
-    the first fitting mip instead of producing garbage."""
-    b = tx.TexturePoolBuilder(max_textures=8, pool_capacity=1 << 18)
-    img = (rng.random((256, 256, 4)) * 255).astype(np.uint8)
-    tid = b.add(img, srgb=False)
-    pool = b.finalize()
-    n, tile = 1024, 256
-    uv = jnp.asarray(rng.random((n, 2)).astype(np.float32))
-    ids = jnp.full((n,), tid, jnp.int32)
-    lod = jnp.zeros((n,))  # wants mip 0 = 65536 texels > 4096 budget
-    got = tx.sample_bilinear_tile_onehot(pool, ids, uv, lod, tile=tile,
-                                         texel_budget=4096, decode_srgb=False)
-    # mip 2 (64x64 = 4096) is the first fitting level.
-    ref = tx.sample_bilinear_nearest_mip(pool, ids, uv, jnp.full((n,), 2.0),
-                                         decode_srgb=False)
-    assert jnp.max(jnp.abs(got - ref)) < 0.01
-    assert bool(jnp.isfinite(got).all())
-
-
-def test_sorted_onehot_matches_bilinear_mixed_textures(rng):
-    """sample_bilinear_sorted handles arbitrary per-pixel texture ids and
-    mips: agreement with the standard nearest-mip path everywhere except
-    the bounded +-1-mip shift on run-boundary tiles."""
-    b = tx.TexturePoolBuilder(max_textures=8, pool_capacity=1 << 18)
-    imgs = [(rng.random((64 << i, 64 << i, 4)) * 255).astype(np.uint8)
-            for i in range(3)]
-    tids = [b.add(im, srgb=False) for im in imgs]
-    pool = b.finalize()
-    # Realistic tiles-per-group ratio matters: boundary tiles (the only
-    # approximate ones) are O(groups), total tiles are O(n/tile).
-    n, tile = 65536, 512
-    uv = jnp.asarray(rng.random((n, 2)).astype(np.float32) * 2.0)
-    ids = jnp.asarray(rng.choice(tids, n).astype(np.int32))
-    lod = jnp.asarray((rng.random(n) * 3.0 + 1.0).astype(np.float32))
-    ref = tx.sample_bilinear_nearest_mip(pool, ids, uv, lod, decode_srgb=False)
-    got = tx.sample_bilinear_sorted(pool, ids, uv, lod, tile=tile,
-                                    decode_srgb=False)
-    err = np.abs(np.asarray(got) - np.asarray(ref)).max(axis=-1)
-    # Most pixels exact (bf16 rounding); boundary-tile pixels may shift one
-    # mip (bounded by adjacent-mip difference).
-    assert np.median(err) < 0.01
-    assert (err < 0.01).mean() > 0.85
-    assert err.max() < 0.5
-
-
-def test_sorted_onehot_single_texture_exact(rng):
-    b = tx.TexturePoolBuilder(max_textures=8, pool_capacity=1 << 18)
-    tid = b.add((rng.random((128, 128, 4)) * 255).astype(np.uint8), srgb=False)
-    pool = b.finalize()
-    n = 4096
-    uv = jnp.asarray(rng.random((n, 2)).astype(np.float32))
-    ids = jnp.full((n,), tid, jnp.int32)
-    lod = jnp.full((n,), 3.0)
-    ref = tx.sample_bilinear_nearest_mip(pool, ids, uv, lod, decode_srgb=False)
-    got = tx.sample_bilinear_sorted(pool, ids, uv, lod, tile=1024,
-                                    decode_srgb=False)
-    assert jnp.max(jnp.abs(got - ref)) < 0.01
-
-
-def test_sample_grad_sorted_quality(rng):
-    b = tx.TexturePoolBuilder(max_textures=8, pool_capacity=1 << 18)
-    tid = b.add((rng.random((64, 64, 4)) * 255).astype(np.uint8), srgb=False)
-    pool = b.finalize()
-    n = 2048
-    uv = jnp.asarray(rng.random((n, 2)).astype(np.float32))
-    duv = jnp.full((n, 2), 4.0 / 64.0)
-    ids = jnp.full((n,), tid, jnp.int32)
-    srt = tx.sample_grad(pool, ids, uv, duv, duv * 0, quality="sorted")
-    bil = tx.sample_grad(pool, ids, uv, duv, duv * 0, quality="bilinear")
-    assert jnp.max(jnp.abs(srt - bil)) < 0.01
 
 
 def test_pow2_mask_addressing_matches_mod(rng):

@@ -2,7 +2,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from arkoserenderer_tpu.ops import tonemap as tm
+from arkoserenderer.ops import tonemap as tm
 
 
 ALL_MODES = list(tm.MODES.values())
@@ -67,7 +67,7 @@ def test_blue_noise_mask_spectrum_and_decorrelation():
     of all ranks, and per-salt/per-frame variants decorrelate."""
     import numpy as np
 
-    from arkoserenderer_tpu.ops.noise import (
+    from arkoserenderer.ops.noise import (
         blue_noise_mask, blue_noise_ranks, sample_blue_noise,
     )
 

@@ -23,14 +23,14 @@ brightness to +/-40%.
 import numpy as np
 import pytest
 
-from arkoserenderer_tpu.assets.procedural import (
+from arkoserenderer.assets.procedural import (
     build_flat_test_scene,
     build_test_scene,
 )
-from arkoserenderer_tpu.core.types import RasterConfig
-from arkoserenderer_tpu.models.pathtracer import PathTracer
-from arkoserenderer_tpu.models.standard import Renderer
-from arkoserenderer_tpu.rendering.pipeline import PipelineConfig
+from arkoserenderer.core.types import RasterConfig
+from arkoserenderer.models.pathtracer import PathTracer
+from arkoserenderer.models.standard import Renderer
+from arkoserenderer.rendering.pipeline import PipelineConfig
 
 W = H = 128
 CFG = PipelineConfig(
@@ -112,7 +112,7 @@ def test_local_lights_pixelwise():
     trace EXACT any-hit occlusion to the lights (RTLocalShadowPass vs the
     tracer's NEE rays). Sun off entirely — local lights are the only
     energy."""
-    from arkoserenderer_tpu.scene.lights import PointLight, SpotLight
+    from arkoserenderer.scene.lights import PointLight, SpotLight
 
     def make():
         scene, cam = build_flat_test_scene(viewport=(W, H))

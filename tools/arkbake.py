@@ -21,8 +21,8 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
-from arkoserenderer_tpu.assets import cereal_binary as cb  # noqa: E402
-from arkoserenderer_tpu.assets.ark import read_ark_document  # noqa: E402
+from arkoserenderer.assets import cereal_binary as cb  # noqa: E402
+from arkoserenderer.assets.ark import read_ark_document  # noqa: E402
 
 # extension -> JSON top-level nvp (mirrors the per-type writeToFile nvps,
 # e.g. MeshAsset.cpp:910 "mesh")

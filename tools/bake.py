@@ -29,10 +29,10 @@ def main(argv=None) -> None:
                     help="also report meshlet statistics")
     args = ap.parse_args(argv)
 
-    from arkoserenderer_tpu.assets.baked import save_baked
-    from arkoserenderer_tpu.assets.gltf import load_gltf
-    from arkoserenderer_tpu.core.types import SceneLimits
-    from arkoserenderer_tpu.scene.scene import Scene
+    from arkoserenderer.assets.baked import save_baked
+    from arkoserenderer.assets.gltf import load_gltf
+    from arkoserenderer.core.types import SceneLimits
+    from arkoserenderer.scene.scene import Scene
 
     t0 = time.perf_counter()
     scene = Scene(limits=SceneLimits(
@@ -41,7 +41,7 @@ def main(argv=None) -> None:
     ))
     res = load_gltf(scene, args.input, max_texture_size=args.max_texture)
     if args.meshlets:
-        from arkoserenderer_tpu.assets.meshopt import build_meshlets
+        from arkoserenderer.assets.meshopt import build_meshlets
 
         total = 0
         for seg in scene.segments:

@@ -55,10 +55,10 @@ def _hash_file(path: Path) -> str:
 
 
 def _tool_gltf(inp: Path, out: Path, rule: dict) -> list[Path]:
-    from arkoserenderer_tpu.assets.baked import save_baked
-    from arkoserenderer_tpu.assets.gltf import load_gltf
-    from arkoserenderer_tpu.core.types import SceneLimits
-    from arkoserenderer_tpu.scene.scene import Scene
+    from arkoserenderer.assets.baked import save_baked
+    from arkoserenderer.assets.gltf import load_gltf
+    from arkoserenderer.core.types import SceneLimits
+    from arkoserenderer.scene.scene import Scene
 
     scene = Scene(limits=SceneLimits(
         max_vertices=1 << 20, max_indices=3 << 20, max_drawables=4096,
@@ -77,8 +77,8 @@ def _tool_image(inp: Path, out: Path, rule: dict) -> list[Path]:
     """Image -> mip chain .npz (ImgAssetBakeTool's mips half)."""
     import numpy as np
 
-    from arkoserenderer_tpu.ops.mattex import _mip_chain
-    from arkoserenderer_tpu.utils.imageio import load_image_rgba
+    from arkoserenderer.ops.mattex import _mip_chain
+    from arkoserenderer.utils.imageio import load_image_rgba
 
     img = load_image_rgba(str(inp)).astype(np.float32)
     mips = _mip_chain(img)
@@ -94,8 +94,8 @@ def _tool_bc7(inp: Path, out: Path, rule: dict) -> list[Path]:
 
     import numpy as np
 
-    from arkoserenderer_tpu.assets.bc7 import compress_bc7
-    from arkoserenderer_tpu.utils.imageio import load_image_rgba
+    from arkoserenderer.assets.bc7 import compress_bc7
+    from arkoserenderer.utils.imageio import load_image_rgba
 
     img = load_image_rgba(str(inp))
     h = (img.shape[0] + 3) // 4 * 4
@@ -117,7 +117,7 @@ def _tool_bc7(inp: Path, out: Path, rule: dict) -> list[Path]:
 def _tool_ies(inp: Path, out: Path, rule: dict) -> list[Path]:
     import numpy as np
 
-    from arkoserenderer_tpu.assets.external import IESProfile
+    from arkoserenderer.assets.external import IESProfile
 
     lut = IESProfile.parse(inp.read_text(errors="replace")).to_lut()
     np.savez_compressed(out, lut=np.asarray(lut, np.float32))
@@ -127,7 +127,7 @@ def _tool_ies(inp: Path, out: Path, rule: dict) -> list[Path]:
 def _tool_hair(inp: Path, out: Path, rule: dict) -> list[Path]:
     import numpy as np
 
-    from arkoserenderer_tpu.assets.external import HairFile
+    from arkoserenderer.assets.external import HairFile
 
     hf = HairFile.parse(inp.read_bytes())
     np.savez_compressed(
@@ -196,7 +196,7 @@ class Cooker:
                 yield rule, inp, out, self._stale(out, deps)
 
     def cook(self, force: bool = False, dry_run: bool = False) -> dict:
-        from arkoserenderer_tpu.core.taskgraph import schedule_task, wait_for_completion
+        from arkoserenderer.core.taskgraph import schedule_task, wait_for_completion
 
         built, skipped, futures = [], [], []
         for rule, inp, out, stale in self.plan():

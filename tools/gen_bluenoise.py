@@ -4,7 +4,7 @@ The reference ships pre-generated blue-noise textures under
 assets/engine/blue-noise/ and binds them for stochastic sampling (film
 grain, shadow PCF discs — GpuScene.cpp:364-474). This tool generates our
 equivalent: a toroidal 128x128 rank mask via Ulichney's void-and-cluster
-algorithm, committed as arkoserenderer_tpu/assets/data/bluenoise_128.npy
+algorithm, committed as arkoserenderer/assets/data/bluenoise_128.npy
 (uint16 ranks; (rank + 0.5) / N**2 gives the [0,1) mask). Salted toroidal
 shifts + per-frame golden-ratio Cranley-Patterson rotation decorrelate
 uses without destroying the spectrum (ops/noise.py).
@@ -20,7 +20,7 @@ from pathlib import Path
 import numpy as np
 
 OUT = Path(__file__).resolve().parents[1] / (
-    "arkoserenderer_tpu/assets/data/bluenoise_128.npy"
+    "arkoserenderer/assets/data/bluenoise_128.npy"
 )
 
 
